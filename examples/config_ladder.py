@@ -105,10 +105,8 @@ def config_2_coupled():
 
 
 def config_5_ensemble():
-    """Stochastic-source ensemble.  On TPU the whole ensemble runs as ONE
-    streaming-megakernel launch (``backend="mega"`` — members partitioned
-    over the kernel's tile range, benchmarks/RESULTS.md); elsewhere the
-    vmapped scan path (sharded over members if >1 device)."""
+    """Stochastic-source ensemble: the vmapped scan path, sharded over
+    members when more than one device is visible."""
     from msgwam_tpu.parallel.ensemble import ensemble_simulate, stack_ensemble
 
     cfg = mt.REFERENCE_RUN_CONFIG.replace(
@@ -137,12 +135,11 @@ def config_5_ensemble():
     if len(jax.devices()) > 1:
         from msgwam_tpu.parallel.sharding import make_mesh
         mesh = make_mesh(axis="ensemble")
-    backend = "mega" if jax.default_backend() == "tpu" else "scan"
     finals, _, _ = ensemble_simulate(states, statics, bg, cfg, run,
-                                     mesh=mesh, backend=backend)
+                                     mesh=mesh)
     du = np.asarray(finals.mean.u) - uu[None, :]
     spread = du.max(axis=0) - du.min(axis=0)
-    print(f"[config 5] ensemble of {n_members} ({backend} backend): member "
+    print(f"[config 5] ensemble of {n_members}: member "
           f"wind-response spread max {spread.max():.4f} m/s "
           f"(devices: {len(jax.devices())})")
     return du

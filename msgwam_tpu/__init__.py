@@ -1,13 +1,13 @@
-"""msgwam-tpu: TPU-native Lagrangian phase-space ray tracing of atmospheric
-internal gravity waves (JAX/XLA/pallas/pjit).
+"""msgwam-tpu: Lagrangian phase-space ray tracing of atmospheric internal
+gravity waves in JAX/XLA.
 
 A from-scratch framework with the capabilities of the NumPy reference
 ``python-msgwam`` (see SURVEY.md): ray volumes carrying wave-action density
 through (z, m) phase space, refracting in a sheared mean flow, saturating at
 the static-instability threshold, and feeding momentum back to the mean flow
 — expressed as a ``lax.scan`` over fixed-capacity masked ray buffers, with a
-segment-sum / pallas projection scatter and ``shard_map``/``psum`` scaling
-over device meshes.
+segment-sum or dense-contraction projection and ``shard_map``/``psum``
+scaling over device meshes.
 """
 
 from .config import GridConfig, ModelConfig, RunConfig, REFERENCE_RUN_CONFIG  # noqa: F401
@@ -51,7 +51,5 @@ from .ops import (  # noqa: F401
     uniform_interp,
     wavenumber_tendencies,
 )
-from .ops.step_pallas import simulate_resident  # noqa: F401
-from .ops.step_pallas_stream import simulate_streaming_ensemble  # noqa: F401
 
 __version__ = "0.1.0"

@@ -23,9 +23,11 @@ plus any :class:`~msgwam_tpu.config.ModelConfig` field, e.g.::
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import sys
+from typing import NamedTuple
 
 
 REFERENCE_PRESET = {
@@ -47,8 +49,8 @@ FAST_PRESET = {
         "saturate_online": True, "hprop": False,
         "projection_backend": "mxu", "interp_backend": "mxu",
         # compensated block accumulation keeps the f32 deposit error ~1e-7,
-        # inside the <1e-6 north-star bar ('native' measures ~1.8e-6 at
-        # this ray count — benchmarks/RESULTS.md); tested in test_cli.py
+        # inside the <1e-6 north-star bar ('native' exceeds it at this ray
+        # count); tested in test_fast_path.py
         "flux_accum": "compensated",
     },
     "grid": {"n_face": 101, "z_max": 100e3},
@@ -62,6 +64,19 @@ FAST_PRESET = {
 
 PRESETS = {"reference": REFERENCE_PRESET, "fast": FAST_PRESET}
 
+# --kernels / "kernels": the two backend pairs of the scan path.
+KERNELS = {
+    # parity backends: segment-sum deposit at the working dtype,
+    # np.interp-exact interpolation
+    "xla": dict(projection_backend="xla", interp_backend="gather",
+                flux_accum="native"),
+    # dense-contraction backends: the f32 fast path
+    "mxu": dict(projection_backend="mxu", interp_backend="mxu"),
+}
+
+# ModelConfig fields that configured the removed fused and whole-run kernels
+REMOVED_MODEL_KEYS = ("rhs_backend", "window_cells", "window_cells2")
+
 BACKGROUNDS = {
     "sine": "velocities_sine_homogeneous",
     "tanh": "velocities_tanh_homogeneous",
@@ -69,7 +84,7 @@ BACKGROUNDS = {
     "zero": None,
 }
 
-# Named TRANSIENT backgrounds (VERDICT r3 #5): a JSON config cannot carry
+# Named TRANSIENT backgrounds: a JSON config cannot carry
 # a wind_fn callable, so ``"background": {"kind": "tidal", ...}`` names one
 # from this registry instead; extra keys are keyword arguments for the
 # factory (models/backgrounds.py).  Each entry maps to a function
@@ -96,66 +111,60 @@ def _load_config(args) -> dict:
             cap -= 1
         spec["run"]["save_every"] = cap
     # --kernels from the command line, else "kernels" from the config
-    # file — both must install the matching model-backend settings, or
-    # run_experiment's mega dispatch would see the name without the
-    # backends (and a file-specified "windowed" would be ignored).  A
+    # file — both install the matching model-backend settings.  A
     # command-line choice overrides the preset/file model block; a
     # file-level "kernels" only fills backends the file left unset.
     from_args = getattr(args, "kernels", None)
     kernels = from_args or spec.get("kernels")
     if kernels:
+        if kernels not in KERNELS:
+            raise ValueError(
+                f"unknown kernels choice {kernels!r}; available: "
+                f"{sorted(KERNELS)} (the whole-run and fused-RHS kernels "
+                f"were removed: every run uses the scan path)")
         model = spec.setdefault("model", {})
-        if kernels == "xla":
-            override = dict(projection_backend="xla",
-                            interp_backend="gather",
-                            rhs_backend="xla", window_cells=0)
-        elif kernels == "mxu":
-            override = dict(projection_backend="mxu", interp_backend="mxu",
-                            rhs_backend="xla", window_cells=0)
-        elif kernels == "pallas":
-            override = dict(projection_backend="mxu", interp_backend="mxu",
-                            rhs_backend="pallas", window_cells=0)
-        elif kernels in ("windowed", "mega"):
-            # window widths: one source of truth — the ModelConfig auto
-            # sentinels (-1), resolved per problem size by the megakernel
-            # drivers against the measured champion ladder
-            # (ops/rhs_pallas.py:resolve_champion); the scan-path windowed
-            # kernel (and mega's capacity/dtype fallback) resolves them to
-            # its own W=16 floor.  A config-file window_cells/window_cells2
-            # stays explicit and wins.
-            override = dict(projection_backend="mxu", interp_backend="mxu",
-                            rhs_backend="pallas")
-        else:
-            raise ValueError(f"unknown kernels choice {kernels!r}")
         if from_args:
-            model.update(override)
+            model.update(KERNELS[kernels])
         else:
-            for key, val in override.items():
+            for key, val in KERNELS[kernels].items():
                 model.setdefault(key, val)
         spec["kernels"] = kernels
-    w2 = getattr(args, "window2", None)
-    if w2 is not None:
-        spec.setdefault("model", {})["window_cells2"] = w2
     return spec
 
 
-def run_experiment(
-    spec: dict,
-    out_dir: str,
-    make_plot: bool = True,
-    log_every: int = 0,
-    resume_from: str = None,
-    stream_history: bool = False,
-    shard: bool = False,
-) -> dict:
-    from .utils.xla import (
-        apply_recommended_xla_flags, enable_persistent_compile_cache,
-    )
+def _model_config(spec: dict, dtype_name: str):
+    """The spec's ModelConfig, with a clear error for removed options."""
+    from . import ModelConfig
 
-    apply_recommended_xla_flags()
+    model = spec.get("model", {})
+    for key in REMOVED_MODEL_KEYS:
+        if key in model:
+            raise ValueError(
+                f"model option {key!r} no longer exists: the kernels it "
+                f"configured were removed and every run uses the scan path; "
+                f"drop it and choose the backends with 'kernels' "
+                f"({sorted(KERNELS)}) or projection_backend/interp_backend")
+    return ModelConfig(dtype=dtype_name, **model)
+
+
+class Experiment(NamedTuple):
+    """Everything a run of ``spec`` needs before its time loop."""
+
+    cfg: object        # ModelConfig
+    grid: object       # GridConfig
+    run: object        # RunConfig
+    bg: object         # Background
+    state: object      # State
+    statics: object    # RayStatics
+    source: object     # relaunch template (None without relaunch)
+    wind_fn: object    # transient background t -> (u, v), or None
+
+
+def setup_experiment(spec: dict) -> Experiment:
+    """Build the configuration, background and initial state of ``spec``
+    (a preset or a JSON config) on JAX's default device.  A float64 spec
+    turns on ``jax_enable_x64``."""
     import jax
-
-    enable_persistent_compile_cache()
 
     if spec.get("dtype", "float64") == "float64":
         jax.config.update("jax_enable_x64", True)
@@ -163,18 +172,15 @@ def run_experiment(
     import numpy as np
 
     from . import (
-        GridConfig, MeanState, ModelConfig, RunConfig, State,
-        gaussian_spectrum_source, make_background, simulate, wave_packet_ic,
+        GridConfig, MeanState, RunConfig, State,
+        gaussian_spectrum_source, make_background, wave_packet_ic,
     )
     from . import models as _models
-    from .diagnostics import wave_action_history
-    from .utils.checkpoint import save_checkpoint
 
     dtype = jnp.float64 if spec.get("dtype") == "float64" else jnp.float32
-    cfg = ModelConfig(dtype=str(np.dtype(dtype)), **spec.get("model", {}))
+    cfg = _model_config(spec, str(np.dtype(dtype)))
     gc = GridConfig(**spec.get("grid", {}))
     run = RunConfig(**spec.get("run", {}))
-
     centers = jnp.asarray(gc.centers(), dtype)
     bg_spec = spec.get("background", "sine")
     wind_fn = None
@@ -213,7 +219,7 @@ def run_experiment(
 
     # d(dr)/dt is structurally zero in this model, so the widest ray volume
     # is known at run start: auto-raise max_span so the xla (segment-sum)
-    # projection never truncates a deposit (ADVICE round 1).
+    # projection never truncates a deposit.
     if cfg.projection_backend == "xla":
         from .ops.projection import required_span
 
@@ -222,6 +228,41 @@ def run_experiment(
             print(f"raising max_span {cfg.max_span} -> {need} "
                   f"(widest ray volume spans {need} cells)")
             cfg = cfg.replace(max_span=need)
+
+    return Experiment(cfg, gc, run, bg, state, statics, source, wind_fn)
+
+
+def run_experiment(
+    spec: dict,
+    out_dir: str,
+    make_plot: bool = True,
+    log_every: int = 0,
+    resume_from: str = None,
+    stream_history: bool = False,
+    shard: bool = False,
+) -> dict:
+    from .utils.xla import (
+        apply_recommended_xla_flags, enable_persistent_compile_cache,
+    )
+
+    if make_plot and importlib.util.find_spec("matplotlib") is None:
+        # fail before the run, not after it
+        raise RuntimeError(
+            "plotting needs matplotlib, which is not installed; pass "
+            "--no-plot (make_plot=False) to run without the figure")
+    apply_recommended_xla_flags()
+    import jax
+
+    enable_persistent_compile_cache()
+    import jax.numpy as jnp
+    import numpy as np
+
+    from . import RunConfig, simulate
+    from .diagnostics import wave_action_history
+    from .utils.checkpoint import save_checkpoint
+
+    cfg, gc, run, bg, state, statics, source, wind_fn = setup_experiment(spec)
+    dtype = state.rays.dens.dtype
 
     step0 = 0
     if resume_from:
@@ -233,45 +274,11 @@ def run_experiment(
     # transient wind_fn backgrounds and the output time axis both use t0
     t0 = step0 * run.dt
 
-    # --kernels mega: the VMEM-resident whole-run megakernel (the fastest
-    # backend at the 1e5 metric of record) when the run fits its scope;
-    # otherwise fall back to the adaptive-window kernel already configured
-    # by _load_config, with the reason printed.
-    use_mega = False
-    if spec.get("kernels") == "mega":
-        reasons = []
-        if dtype != jnp.float32:
-            reasons.append("state dtype is not float32")
-        if cfg.hprop:
-            reasons.append("hprop=True")
-        if (cfg.cull or cfg.relaunch) and not cfg.saturate_online:
-            # the in-kernel lifecycle runs only in online-saturation mode
-            reasons.append("culling/relaunch with offline saturation")
-        if shard:
-            # ray-axis sharding runs the scan path under shard_map (the
-            # megakernel family shards over ensemble members, not rays)
-            reasons.append("--shard uses the scan path")
-        if reasons:
-            print("--kernels mega: falling back to the adaptive-window "
-                  "kernel (" + "; ".join(reasons) + ")")
-        else:
-            use_mega = True
-
     # every sim takes the chunk's physical start time as a TRACED scalar:
     # with --log-every the run is host-chunked, and a transient wind_fn
     # must continue its phase across chunks (a closed-over constant t0
     # would restart the tide every chunk)
-    if use_mega:
-        from .ops.step_pallas import simulate_resident
-
-        sim = jax.jit(
-            lambda s, st, r, toff: simulate_resident(s, st, bg, cfg, r,
-                                                     source=source,
-                                                     wind_fn=wind_fn,
-                                                     t0=toff),
-            static_argnums=(2,),
-        )
-    elif shard:
+    if shard:
         if wind_fn is not None:
             raise ValueError(
                 "--shard does not support transient backgrounds (the "
@@ -334,7 +341,7 @@ def run_experiment(
             writer = StateHistoryWriter(
                 os.path.join(out_dir, "state_history.msgw"),
                 capacity=int(state.rays.dens.shape[0]), n_cell=gc.n_cell,
-                dtype=np.dtype(dtype.dtype if hasattr(dtype, 'dtype') else dtype),
+                dtype=np.dtype(dtype),
             )
         pieces = []       # full in-RAM history chunks (non-streamed mode)
         diag_pieces = []  # per-chunk diagnostics (streamed mode: small)
@@ -436,28 +443,18 @@ def main(argv=None):
                       help="shard the ray axis over all visible devices "
                            "(scan path under shard_map; one psum per RHS "
                            "evaluation at the flux reduction)")
-    runp.add_argument("--window2", type=int,
-                      help="second window tier (window_cells2) for the "
-                           "windowed/mega kernels; 0 disables")
-    runp.add_argument("--kernels",
-                      choices=["xla", "mxu", "pallas", "windowed", "mega"],
-                      help="compute-kernel override: xla = parity backends "
-                           "(segment-sum / np.interp-exact); mxu = dense "
-                           "XLA backends; pallas = fused-RHS TPU kernel; "
-                           "windowed = fused kernel with adaptive per-block "
-                           "height windows; mega = whole-run megakernel "
-                           "(VMEM-resident <= 131072 f32 rays, "
-                           "HBM-streaming above, in-kernel cull/relaunch — "
-                           "fastest at every size; falls back to windowed "
-                           "for f64/hprop/lifecycle-with-offline-"
-                           "saturation; benchmarks/RESULTS.md)")
+    runp.add_argument("--kernels", choices=sorted(KERNELS),
+                      help="backend pair of the scan path: xla = parity "
+                           "backends (segment-sum deposit / np.interp-exact "
+                           "interpolation); mxu = dense-contraction "
+                           "backends (the f32 fast path)")
     # add_help=False: `msgwam_tpu bench --help` must show bench.py's own
     # flags, so --help rides along in the forwarded extras instead of
     # being answered by this (flagless) subparser (ADVICE r3)
     sub.add_parser(
         "bench", add_help=False,
         help="run the metric-of-record benchmark; all flags are "
-             "forwarded to bench.py (--backend/--n-ray/--steps/--matrix/"
+             "forwarded to bench.py (--backend/--n-ray/--steps/--grad/"
              "--help/...)")
     # bench flags are owned by bench.py: parse only our args and forward
     # the rest (argparse.REMAINDER mis-handles leading optionals, bpo-17050)

@@ -1,4 +1,4 @@
-"""Frozen, hashable configuration for the TPU-native ray tracer.
+"""Frozen, hashable configuration for the ray tracer.
 
 The reference keeps configuration in two mutable module-global dicts,
 ``model_config`` and ``statics`` (``lib/libprop.py:10-11``), populated by
@@ -83,59 +83,20 @@ class ModelConfig:
     # Computation dtype for state and physics ("float32" or "float64").
     dtype: str = "float64"
     # Projection backend: "xla" (segment_sum scatter; parity mode) or
-    # "mxu" (dense weight-matrix matmul; TPU fast path).
+    # "mxu" (dense weight-matrix contraction; the f32 fast path).
     projection_backend: str = "xla"
     # Pseudo-momentum-flux deposit accumulation: "native" sums at the
     # working dtype; "compensated" (mxu backend) computes 8192-ray block
-    # partials on the MXU and Kahan-combines them at working precision —
-    # deposit error ~1e-7 at 1e6 f32 rays with no x64 dependency; "f64"
-    # combines block partials in float64 (requires jax_enable_x64).
+    # partials and Kahan-combines them at working precision — deposit
+    # error ~1e-7 at 1e6 f32 rays with no x64 dependency; "f64" combines
+    # block partials in float64 (requires jax_enable_x64).
     flux_accum: str = "native"
     # Interpolation backend: "gather" (np.interp-exact; parity mode) or
-    # "mxu" (hat-basis matmul; TPU fast path).
+    # "mxu" (hat-basis contraction; the f32 fast path).
     interp_backend: str = "gather"
     # Time integrator: "rk3" (the reference's Williamson low-storage RK3,
     # lib/libprop.py:680-700), "rk4", or "euler".
     integrator: str = "rk3"
-    # RHS backend: "xla" (composable jnp ops, any configuration) or
-    # "pallas" (one fused TPU kernel per RHS evaluation; float32,
-    # hprop=False only — see ops/rhs_pallas.py).
-    rhs_backend: str = "xla"
-    # Adaptive height-windowed fused kernel (pallas backend only): restrict
-    # each 8192-ray block's basis/weight construction to a window of this
-    # many grid cells.  Values are clamped to a floor of 16 and rounded up
-    # to a multiple of 8 (both kernel entry points apply
-    # ``max(window_cells, 16)``); 0 disables windowing and selects the
-    # plain full-width fused kernel.  The window start is computed per
-    # block *inside* the kernel from that block's own touched-cell bounds,
-    # and any block whose span outgrows the window falls back — per block,
-    # in the same kernel — to the exact full-width path, so results are
-    # always exact.  Source slots are launched height-ordered, so coherent
-    # workloads stay windowed with no sorting.  The default -1 means
-    # *auto*: the megakernel drivers resolve it against the measured
-    # per-size champion ladder (ops/rhs_pallas.py:resolve_champion — W=24
-    # below ~2e5 rays, W=16 above), and the scan-path windowed kernel
-    # resolves it to the 16-cell floor (the measured-fastest fixed setting
-    # there: 1.16e9 ray-steps/s at 1e6 rays — benchmarks/RESULTS.md); see
-    # ops/rhs_pallas_windowed.py.
-    window_cells: int = -1
-
-    # Second window tier for the megakernel family (ops/step_pallas*.py):
-    # a block whose span outgrows ``window_cells`` tries this wider window
-    # before falling back to the exact full-width path.  Motivated by the
-    # measured span distribution (tools/span_study.py): after ~1000 steps
-    # the per-block spans are BIMODAL — coherent blocks stay under ~16-24
-    # cells while the dispersive small-|m| tail blocks mix to 80-100 cells
-    # (per-ray extents stay at ~0.5 cells; it is pure positional mixing) —
-    # so a wide second tier recovers most of the 8x full-width penalty on
-    # exactly those blocks.  Rounded up to a multiple of 8; 0 disables the
-    # tier; the default -1 means *auto* — the megakernel drivers resolve
-    # it against the champion ladder (W2=96 at >1e5-class sizes, where it
-    # wins +5%; off below, where it is NEGATIVE -2..-9% and window_cells=24
-    # is the right move instead — ops/rhs_pallas.py:resolve_champion), and
-    # the scan-path kernels resolve it to off.  Results are exact on every
-    # path.  Measured on TPU: benchmarks/WORKLIST_r03.jsonl.
-    window_cells2: int = -1
 
     # Prognostic mean flow (wave–mean-flow coupling on).  False freezes the
     # wind tendencies — a truly *fixed* background (BASELINE config 1), or,

@@ -160,179 +160,14 @@ def reference_window_diagnostics(
 
 def pseudo_momentum_flux(rays, statics, bg: Background, cfg: ModelConfig):
     """Pseudo-momentum flux profile (u, v components) on the center grid —
-    the wave→mean-flow observable (``lib/libprop.py:96,146-163``)."""
+    the wave→mean-flow observable (``lib/libprop.py:96,146-163``), with the
+    same backend and accumulation as the RHS deposit."""
     phase_vol = jnp.abs(statics.dkk * statics.dll * rays.dm)
     cgr = cg_r(rays.k, rays.l, rays.m, rays.phi, cfg.bvf)
     vals = jnp.stack([cgr * rays.k * rays.dens, cgr * rays.l * rays.dens])
     return project_backend(cfg.projection_backend)(
         vals, rays.r - 0.5 * rays.dr, rays.r + 0.5 * rays.dr,
         phase_vol, statics.active, bg.centers, cfg.max_span,
+        accum=cfg.flux_accum,
     )
 
-
-def internal_ray_layout(state, statics, perm):
-    """Re-express per-ray state/statics in the streaming megakernel's
-    INTERNAL (launch-sorted) buffer layout.
-
-    ``perm`` is the final slot permutation from
-    ``simulate_streaming(..., return_final_perm=True)``: ``perm[i]`` is
-    the caller slot id at internal buffer position ``i`` (ids ``>= n``
-    are the kernel's pad rows — edge-replicated fields, inactive mask).
-    Applying it to the returned slot-ordered state reconstructs exactly
-    what the kernel's last launch iterated over, so
-    :func:`window_fallback_stats` measures the layout the kernel SAW
-    instead of the unpermuted slot order (whose coherence is that of the
-    launch-sort-OFF kernel — the round-4 matrix asterisk).
-
-    Returns ``(state, statics)`` over the padded buffer length
-    ``perm.shape[0]`` (already a whole-tile multiple, so the diagnostic
-    adds no further padding).
-    """
-    from .state import State
-
-    n = state.rays.r.shape[0]
-    pad = perm.shape[0] - n
-
-    def gather(x):
-        return jnp.pad(jnp.asarray(x), (0, pad), mode="edge")[perm]
-
-    rays = jax.tree.map(gather, state.rays)
-    active = jnp.pad(jnp.asarray(statics.active), (0, pad),
-                     constant_values=False)[perm]
-    statics_i = jax.tree.map(gather, statics)._replace(active=active)
-    return State(rays, state.mean), statics_i
-
-
-class WindowFallbackStats(NamedTuple):
-    """Window-coherence observability for the adaptive-window kernels."""
-
-    n_blocks: jax.Array        # total 8192-ray blocks (incl. all-inactive)
-    n_fallback: jax.Array      # blocks whose span outgrows window_cells
-    fallback_rate: jax.Array   # n_fallback / n_blocks
-    # with a window_cells2 tier: blocks that outgrow BOTH windows and run
-    # the exact full-width path (== the above when the tier is off)
-    full_rate: jax.Array = jnp.float32(0.0)
-
-
-def block_window_bounds(dt, state, statics, bg: Background,
-                        cfg: ModelConfig, block_rows: int = 0):
-    """Per-block touched-cell window bounds ``(lo_b, hi_b, c_pad)`` —
-    the exact index arithmetic of the adaptive-window kernels (hat bases
-    of r and the saturation-extrapolated r_fin, plus the deposit span
-    ``[nlow, nup)`` from ``lib/libprop.py:121-135``; reciprocal-multiply
-    by 1/dz like the kernels) mirrored in plain XLA.  Shared by
-    :func:`window_fallback_stats` and the span study
-    (``tools/span_study.py``) so the mirror lives in exactly one place.
-
-    ``block_rows`` as in :func:`window_fallback_stats`.  All-inactive
-    blocks return ``lo_b=1e9 > hi_b=-1e9`` (an empty span).
-    """
-    from .constants import ROT_EARTH
-    from .ops.rhs_pallas import LANE, SUBLANES, prepare_inputs
-
-    _params, _tables, fields, dims = prepare_inputs(dt, state, statics,
-                                                    bg, cfg)
-    _n, n_tab, n_flux_cells, c_pad = dims
-    (dens, r, dr, k, l, m, dm, phi, dkk, dll, area, act) = fields
-
-    g0c = bg.centers[0].astype(jnp.float32)
-    dz = (bg.centers[1] - bg.centers[0]).astype(jnp.float32)
-    idz = 1.0 / dz   # the kernels multiply by the reciprocal; match exactly
-    g0f = bg.faces[1].astype(jnp.float32)
-    hi_c = g0c + (n_tab - 1.0) * dz
-    hi_f = g0f + (n_tab - 2.0) * dz
-    nzmax_i = n_flux_cells - 1
-
-    amask = act > 0
-    ff = 2.0 * ROT_EARTH * jnp.sin(phi)
-    kh2 = k * k + l * l
-    k2 = kh2 + m * m
-    # the kernels' exact reciprocal+rsqrt factoring (strength-reduced
-    # dispersion, ops/step_pallas_stream.py) — a sqrt/divide form differs
-    # in the last ulps and can flip a block sitting exactly on the
-    # win+W boundary
-    om2 = (cfg.bvf * cfg.bvf * kh2 + ff * ff * m * m) * (1.0 / k2)
-    cgr = -m * (om2 - ff * ff) * jax.lax.rsqrt(om2) * (1.0 / k2)
-    r_fin = r + cgr * jnp.float32(dt)
-
-    nlow = jnp.clip(((r - 0.5 * dr) * idz).astype(jnp.int32), 0, nzmax_i)
-    nup = jnp.clip(((r + 0.5 * dr) * idz + 1.0).astype(jnp.int32), 0, nzmax_i)
-    qf_t = (jnp.clip(r, g0f, hi_f) - g0f) * idz
-    qr_t = (jnp.clip(r_fin, g0c, hi_c) - g0c) * idz
-    lo_t = jnp.minimum(jnp.minimum(jnp.floor(qf_t), jnp.floor(qr_t)) - 1.0,
-                       nlow.astype(jnp.float32))
-    hi_t = jnp.maximum(jnp.maximum(jnp.floor(qf_t), jnp.floor(qr_t)) + 2.0,
-                       nup.astype(jnp.float32))
-    lo_t = jnp.where(amask, lo_t, 1e9)
-    hi_t = jnp.where(amask, hi_t, -1e9)
-
-    n_rows = r.shape[0]
-    if block_rows <= 0:
-        block_rows = SUBLANES if n_rows % SUBLANES == 0 else 8
-    rem = n_rows % block_rows
-    if rem:
-        # the streaming driver pads ray slabs to whole tiles host-side;
-        # mirror that with empty-span rows (inactive slots)
-        padn = block_rows - rem
-        lo_t = jnp.concatenate(
-            [lo_t, jnp.full((padn, LANE), 1e9, lo_t.dtype)])
-        hi_t = jnp.concatenate(
-            [hi_t, jnp.full((padn, LANE), -1e9, hi_t.dtype)])
-        n_rows += padn
-    n_blocks = n_rows // block_rows
-    lo_b = jnp.min(lo_t.reshape(n_blocks, block_rows * LANE), axis=1)
-    hi_b = jnp.max(hi_t.reshape(n_blocks, block_rows * LANE), axis=1)
-    return lo_b, hi_b, c_pad
-
-
-def window_fallback_stats(dt, state, statics, bg: Background,
-                          cfg: ModelConfig,
-                          block_rows: int = 0) -> WindowFallbackStats:
-    """How many 8192-ray blocks of the adaptive-window kernels
-    (``ops/rhs_pallas_windowed.py``, ``ops/step_pallas.py``) would fall
-    back to the exact full-width path for the *current* buffer layout.
-
-    ``block_rows`` is the kernel tile height in 128-lane sublane rows
-    (8192 rays per block at the default 64).  0 picks the resident
-    kernel's rule: 64 when the padded buffer divides evenly, else 8
-    (``ops/step_pallas.py`` tile selection); the scan-path windowed
-    kernel uses 64-row tiles, which that rule also yields.  The
-    STREAMING kernel auto-scales its tile height by problem size
-    (``ops/step_pallas_stream._auto_tile_rows`` — 128-256 rows at >=5e5
-    rays), so pass that height explicitly to mirror it.
-
-    The windowed kernels silently stay exact when a block's touched-cell
-    span outgrows ``W`` — correct, but a decohered buffer then quietly
-    loses the ~1.5x windowed win.  This mirror computes the identical
-    per-block window bounds (same index arithmetic as the kernels: hat
-    bases of r and the saturation-extrapolated r_fin, plus the deposit
-    span ``[nlow, nup)`` from ``lib/libprop.py:121-135``) in plain XLA,
-    so observability costs the hot loop nothing.  Blocks with no active
-    ray never fall back (the kernel's mask gives them an empty span).
-
-    Used by the coherence stress test (tests/test_windowed.py) and
-    reported by ``bench.py --fallback``.
-    """
-    from .ops.rhs_pallas import resolve_window_cells
-
-    lo_b, hi_b, c_pad = block_window_bounds(dt, state, statics, bg, cfg,
-                                            block_rows=block_rows)
-    n_blocks = lo_b.shape[0]
-    W, W2 = resolve_window_cells(cfg, c_pad)
-    lo8 = (lo_b.astype(jnp.int32) // 8) * 8
-    win = jnp.clip(lo8, 0, c_pad - W)
-    ok = hi_b - win.astype(jnp.float32) <= W
-
-    n_fb = jnp.sum(~ok)
-    if W2 > W:
-        win2 = jnp.clip(lo8, 0, c_pad - W2)
-        full = (~ok) & (hi_b - win2.astype(jnp.float32) > W2)
-        full_rate = jnp.sum(full) / n_blocks
-    else:
-        full_rate = n_fb / n_blocks
-    return WindowFallbackStats(
-        n_blocks=jnp.asarray(n_blocks),
-        n_fallback=n_fb,
-        fallback_rate=n_fb / n_blocks,
-        full_rate=full_rate,
-    )

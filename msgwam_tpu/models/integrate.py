@@ -48,21 +48,18 @@ def validate_inputs(state: State, statics: RayStatics, bg: Background,
     import numpy as np
 
     # Accuracy guard (north-star bar: flux deposit error < 1e-6): plain f32
-    # accumulation through the dense mxu projection measures ~1.8e-6 at 1e5
-    # rays and ~4.4e-6 at 1e6 (benchmarks/RESULTS.md); the compensated and
-    # f64 modes (and the pallas kernels' built-in in-VMEM Kahan) stay at
-    # ~1e-7.  Warn rather than fail: the fast-but-looser mode remains a
-    # deliberate choice for benchmarking.
+    # accumulation through the dense mxu projection exceeds the bar at
+    # ~1e5 rays and above; the compensated and f64 modes stay at ~1e-7.
+    # Warn rather than fail: the looser mode remains a deliberate choice.
     if (cfg.dtype == "float32" and cfg.projection_backend == "mxu"
-            and cfg.rhs_backend != "pallas" and cfg.flux_accum == "native"
+            and cfg.flux_accum == "native"
             and state.rays.dens.shape[0] >= 65536):
         import warnings
 
         warnings.warn(
             f"flux_accum='native' at {state.rays.dens.shape[0]} f32 rays "
-            f"exceeds the 1e-6 deposit-error target (~2e-6 at 1e5 rays); "
-            f"use flux_accum='compensated' (same speed class) or the "
-            f"pallas backend (in-kernel Kahan) for accurate fast runs",
+            f"exceeds the 1e-6 deposit-error target; use "
+            f"flux_accum='compensated' for accurate fast runs",
             stacklevel=2,
         )
 
@@ -153,52 +150,9 @@ def rk3_step(
     selects rk3/rk4/euler; default is the reference's Williamson RK3).
     Like the reference, the full ``dt`` is passed to every stage's RHS
     (``lib/libprop.py:693-697`` — only online saturation consumes it;
-    SURVEY.md quirk 6).
-
-    With the adaptive-window pallas backend and the default RHS, the whole
-    step runs stage-fused (the RK3 q/y arithmetic inside the kernel —
-    measured ~0.18 ms/step of XLA glue at 1e6 rays otherwise); gradients
-    route through the generic path via a custom VJP."""
-    if (rhs is rhs_default and cfg.rhs_backend == "pallas"
-            and cfg.window_cells != 0 and cfg.integrator == "rk3"
-            and not cfg.hprop):
-        return _rk3_step_fused(dt, state, statics, bg, cfg, axis_name)
+    SURVEY.md quirk 6)."""
     integ = INTEGRATORS[cfg.integrator]
     return integ(lambda s: rhs(dt, s, statics, bg, cfg, axis_name), state, dt)
-
-
-import functools as _functools
-
-
-@_functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5))
-def _rk3_step_fused(dt, state, statics, bg, cfg, axis_name):
-    from ..ops.rhs_pallas_windowed import rk3_step_fused_windowed
-
-    return rk3_step_fused_windowed(dt, state, statics, bg, cfg, axis_name)
-
-
-def _rk3_step_fused_fwd(dt, state, statics, bg, cfg, axis_name):
-    return (_rk3_step_fused(dt, state, statics, bg, cfg, axis_name),
-            (dt, state, statics, bg))
-
-
-def _rk3_step_fused_bwd(cfg, axis_name, res, g):
-    dt, state, statics, bg = res
-    # dense-XLA backends stand in for the in-kernel bases; flux_accum is
-    # carried through unchanged (replace() keeps unspecified fields)
-    xla_cfg = cfg.replace(rhs_backend="xla",
-                          projection_backend="mxu", interp_backend="mxu")
-
-    def generic(dt_, s_, st_, bg_):
-        return williamson_rk3(
-            lambda s: rhs_default(dt_, s, st_, bg_, xla_cfg, axis_name),
-            s_, dt_)
-
-    _, vjp = jax.vjp(generic, dt, state, statics, bg)
-    return vjp(g)
-
-
-_rk3_step_fused.defvjp(_rk3_step_fused_fwd, _rk3_step_fused_bwd)
 
 
 class StepAux(NamedTuple):
@@ -279,7 +233,6 @@ def simulate(
     include_t0: bool = False,
     source_key: Optional[jax.Array] = None,
     validate: bool = True,
-    sort_every: int = 0,
     remat=False,
 ):
     """Run ``run.n_steps`` steps as one ``lax.scan``, recording an
@@ -302,15 +255,6 @@ def simulate(
     the initial condition before the loop); every history leaf then has
     leading axis ``n_steps // save_every + 1``.
 
-    ``sort_every=N`` keeps the ray buffer physically height-sorted (re-sorted
-    every N steps), which is what makes the windowed fused kernel
-    (``cfg.window_cells``, ops/rhs_pallas_windowed.py) effective.  A carried
-    slot-identity permutation makes this fully transparent: history frames,
-    relaunch templates, and the returned final state are all expressed in the
-    *original* slot order, so per-slot semantics (the reference's
-    ``raytracer.py:124-150`` history layout) are preserved exactly; only
-    floating-point reduction order differs.
-
     ``remat=True`` wraps each ``save_every``-step block in
     ``jax.checkpoint``: ``jax.grad`` through the run then stores only the
     per-block carries (``n_steps/save_every`` state snapshots) and replays
@@ -321,15 +265,11 @@ def simulate(
 
     ``remat="full"`` additionally checkpoints every *step* inside the
     block: the replayed block then stores only per-step state snapshots
-    (~60 MB each at 1e6 rays) instead of each step's full RHS residuals
-    (~8.5 GB each at 1e6 — measured 85 GB for a 10-step block, >5x HBM).
-    Peak adjoint memory becomes ``(n_steps/save_every + save_every)``
-    state snapshots plus one step's residuals, at the cost of one more
-    forward replay per step in the backward sweep.  Required for
-    1e6-ray adjoints — and measured FASTER at every size (1e5/100 steps
-    on the TPU: backward:forward 4.61 vs 19.76 for plain ``True``; the
-    block backward is HBM-bandwidth-bound on its 99-wide residuals,
-    so recomputing beats re-reading them).
+    (~60 MB each at 1e6 rays) instead of each step's full RHS residuals,
+    which hold several ``(n, n_cell)`` matrices per RK3 stage.  Peak
+    adjoint memory becomes ``(n_steps/save_every + save_every)`` state
+    snapshots plus one step's residuals, at the cost of one more forward
+    replay per step in the backward sweep.  Required for 1e6-ray adjoints.
 
     ``wind_fn(t) -> (u, v)`` prescribes a transient imposed background
     (e.g. :func:`msgwam_tpu.models.backgrounds.tidal_shear`): the mean wind
@@ -354,39 +294,8 @@ def simulate(
     if source_key is None:
         source_key = jnp.zeros((2,), dtype=jnp.uint32)  # unused placeholder
 
-    # The slot-identity machinery below exists solely for sort_every; when
-    # sorting is off (the default — XLA's TPU sort costs 150-250 ms at 1e6
-    # rays, ~100x a step) the scan body traces none of it and the carry
-    # holds no slot array at all (None is an empty pytree node), so
-    # unsorted runs pay zero for the feature.
-    use_sort = sort_every > 0
-    slot0 = (jnp.arange(state.rays.r.shape[0], dtype=jnp.int32)
-             if use_sort else None)
-
-    def _sorted(st, stat, slot):
-        # inactive slots sort to the end, keeping live blocks height-local
-        order = jnp.argsort(jnp.where(stat.active, st.rays.r, jnp.inf))
-        g = lambda x: x[order]
-        return (st._replace(rays=jax.tree.map(g, st.rays)),
-                jax.tree.map(g, stat), slot[order])
-
-    def _unsorted(st, stat, aux, slot):
-        if not use_sort:
-            return st, stat, aux
-        inv = jnp.argsort(slot)
-        g = lambda x: x[inv]
-        return (st._replace(rays=jax.tree.map(g, st.rays)),
-                jax.tree.map(g, stat), jax.tree.map(g, aux))
-
     def inner(carry, i):
-        st, stat, key, slot = carry
-        if use_sort:
-            st, stat, slot = jax.lax.cond(
-                (i % sort_every) == 0,
-                _sorted,
-                lambda s, t, sl: (s, t, sl),
-                st, stat, slot,
-            )
+        st, stat, key = carry
         if wind_fn is not None:
             t = t0 + i.astype(bg.centers.dtype) * run.dt
             u, v = wind_fn(t)
@@ -403,10 +312,6 @@ def simulate(
                 template = source(sub)
             else:
                 template = source
-            if use_sort:
-                # express the template in the current (sorted) slot layout so
-                # each physical slot still receives *its* template ray
-                template = jax.tree.map(lambda x: x[slot], template)
 
             if relaunch_every > 1:
                 st, stat = jax.lax.cond(
@@ -416,7 +321,7 @@ def simulate(
                 )
             else:
                 st, stat = _sources.relaunch(st, stat, template)
-        return (st, stat, key, slot), aux
+        return (st, stat, key), aux
 
     if remat == "full":
         inner = jax.checkpoint(inner)
@@ -425,18 +330,17 @@ def simulate(
         # only the last step's aux leaves the block: the per-step stack
         # would otherwise be materialized (and, under remat, saved) even
         # though observe() sees one frame per outer step
-        (st, stat, key, slot), aux = jax.lax.scan(inner, carry, block)
+        carry, aux = jax.lax.scan(inner, carry, block)
         aux_last = jax.tree.map(lambda x: x[-1], aux)
-        return (st, stat, key, slot), aux_last
+        return carry, aux_last
 
     if remat:
         run_block = jax.checkpoint(run_block)
 
     def outer(carry, block):
         carry, aux_last = run_block(carry, block)
-        st, stat, _, slot = carry
-        ob_st, ob_stat, ob_aux = _unsorted(st, stat, aux_last, slot)
-        return carry, observe(ob_st, ob_stat, ob_aux)
+        st, stat, _ = carry
+        return carry, observe(st, stat, aux_last)
 
     obs0 = None
     if include_t0:
@@ -445,11 +349,9 @@ def simulate(
         obs0 = observe(state, statics, StepAux(dens_prop=state.rays.dens))
 
     steps = jnp.arange(run.n_steps).reshape(n_outer, run.save_every)
-    (state, statics, _, slot), history = jax.lax.scan(
-        outer, (state, statics, source_key, slot0), steps
+    (state, statics, _), history = jax.lax.scan(
+        outer, (state, statics, source_key), steps
     )
-    if use_sort:
-        state, statics, _ = _unsorted(state, statics, StepAux(state.rays.dens), slot)
     if include_t0:
         history = jax.tree.map(
             lambda h0, h: jnp.concatenate([h0[None].astype(h.dtype), h]),

@@ -42,9 +42,8 @@ def gather_winds(rays: RayState, mean: MeanState, bg: Background,
     each ray's center height.
 
     ``backend="gather"`` matches ``np.interp`` arithmetic exactly (parity
-    mode); ``backend="mxu"`` evaluates all four profiles with two hat-basis
-    matmuls (TPU fast path — arbitrary-index gathers serialize on TPU, the
-    100-row basis contraction runs on the systolic array).
+    mode); ``backend="mxu"`` evaluates all four profiles with two dense
+    hat-basis contractions against the ~100-row tables (the f32 fast path).
     """
     dz = bg.centers[1] - bg.centers[0]
     du_dz = (mean.u[1:] - mean.u[:-1]) / dz
@@ -74,30 +73,7 @@ def rhs(
     axis_name: Optional[str] = None,
 ) -> State:
     """d(state)/dt.  ``cfg`` is jit-static; ``axis_name`` names the sharded
-    ray axis for the cross-shard flux reduction (None = single shard).
-
-    Differentiable on every backend: the pallas fused kernel carries a
-    ``custom_vjp`` whose backward pass differentiates the numerically
-    equivalent XLA path (the kernels match at f32 tolerance, so the
-    gradients are consistent to the same order).  Backend substitution in
-    that backward pass: ``projection_backend``/``interp_backend`` are
-    forced to the dense "mxu" path (the closest XLA equivalent of the
-    in-kernel bases), while ``cfg.flux_accum`` is carried through
-    unchanged, so e.g. a ``flux_accum="compensated"`` forward gets the
-    same compensated accumulation in its gradient."""
-    if cfg.rhs_backend == "pallas":
-        return _rhs_fused_diff(dt, state, statics, bg, cfg, axis_name)
-    return _rhs_xla(dt, state, statics, bg, cfg, axis_name)
-
-
-def _rhs_xla(
-    dt,
-    state: State,
-    statics: RayStatics,
-    bg: Background,
-    cfg: ModelConfig,
-    axis_name: Optional[str] = None,
-) -> State:
+    ray axis for the cross-shard flux reduction (None = single shard)."""
     rays, mean = state
     active = statics.active
 
@@ -105,9 +81,8 @@ def _rhs_xla(
 
     # Structurally-zero tendencies are Python scalars (0.0), not zero
     # arrays: the RK3 stage arithmetic then folds to a no-op for those
-    # fields and XLA never materializes or round-trips them through HBM
-    # (measured ~2x on the whole step at 1e6 rays with hprop off, where 6
-    # of 11 state fields are constant).
+    # fields and XLA never materializes or round-trips them through device
+    # memory (with hprop off, 6 of 11 state fields are constant).
     #
     # cg_r is height-independent in this model, so the reference's edge
     # evaluations at r ± dr/2 (lib/libprop.py:635-636) are bitwise
@@ -204,81 +179,3 @@ def _rhs_xla(
     cast = lambda t, like: t if isinstance(t, float) else t.astype(like.dtype)
     return State(ray_st, MeanState(cast(du_st, mean.u), cast(dv_st, mean.v)))
 
-
-import functools as _functools
-
-
-@_functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5))
-def _rhs_fused_diff(dt, state, statics, bg, cfg, axis_name):
-    """Pallas fused RHS with gradients: forward runs the hand kernel,
-    backward differentiates the equivalent XLA path (same physics, same
-    masks; the two match at f32 tolerance — tests/test_rhs_fused.py)."""
-    return _rhs_via_fused_kernel(dt, state, statics, bg, cfg, axis_name)
-
-
-def _rhs_fused_fwd(dt, state, statics, bg, cfg, axis_name):
-    out = _rhs_via_fused_kernel(dt, state, statics, bg, cfg, axis_name)
-    return out, (dt, state, statics, bg)
-
-
-def _rhs_fused_bwd(cfg, axis_name, res, g):
-    dt, state, statics, bg = res
-    # dense-XLA backends stand in for the in-kernel bases; flux_accum is
-    # carried through unchanged (replace() keeps unspecified fields)
-    xla_cfg = cfg.replace(rhs_backend="xla",
-                          projection_backend="mxu", interp_backend="mxu")
-    _, vjp = jax.vjp(
-        lambda dt_, s_, st_, bg_: _rhs_xla(dt_, s_, st_, bg_, xla_cfg,
-                                           axis_name),
-        dt, state, statics, bg,
-    )
-    return vjp(g)
-
-
-_rhs_fused_diff.defvjp(_rhs_fused_fwd, _rhs_fused_bwd)
-
-
-def _rhs_via_fused_kernel(dt, state, statics, bg, cfg, axis_name):
-    """RHS through the fused pallas kernel (``ops/rhs_pallas.py``): the
-    kernel returns the three active ray tendencies (hprop=False) plus the
-    interior flux; boundary padding, flux divergence, and the mean-flow
-    tendencies are the same XLA glue as the composable path.
-    ``cfg.window_cells != 0`` selects the height-windowed variant (with its
-    built-in exact fallback; -1 = auto resolves to the 16-cell floor; see
-    ops/rhs_pallas_windowed.py)."""
-    if cfg.window_cells != 0:
-        from ..ops.rhs_pallas_windowed import rhs_fused_windowed as rhs_fused
-    else:
-        from ..ops.rhs_pallas import rhs_fused
-
-    rays, mean = state
-    tend, pm_interior = rhs_fused(dt, state, statics, bg, cfg)
-    if axis_name is not None:
-        pm_interior = jax.lax.psum(pm_interior, axis_name)
-
-    edge_lo = pm_interior[:, :1]
-    edge_hi = pm_interior[:, -1:]
-    pm_flux = jnp.concatenate([edge_lo, pm_interior, edge_hi], axis=1)
-    dz = bg.faces[1] - bg.faces[0]
-    pm_flux_gradient = (pm_flux[:, 1:] - pm_flux[:, :-1]) / dz
-
-    if cfg.prognostic_mean:
-        ff = coriolis(cfg.phi0)
-        du_st = ff * mean.v - (bg.pressure_gradient[0] + pm_flux_gradient[0]) / bg.rhobar
-        dv_st = -ff * mean.u - (bg.pressure_gradient[1] + pm_flux_gradient[1]) / bg.rhobar
-    else:
-        du_st = 0.0
-        dv_st = 0.0
-
-    # structural zeros mirror the XLA path exactly (incl. dens when online
-    # saturation is off) so both backends share one output pytree structure
-    # — required for the custom_vjp backward to reuse the XLA path
-    dens_st = tend["dens"].astype(rays.dens.dtype) \
-        if cfg.saturate_online else 0.0
-    ray_st = RayState(
-        dens=dens_st, lam=0.0, phi=0.0,
-        r=tend["r"].astype(rays.dens.dtype), dr=0.0,
-        k=0.0, l=0.0, m=tend["m"].astype(rays.dens.dtype), dm=0.0,
-    )
-    cast = lambda t, like: t if isinstance(t, float) else t.astype(like.dtype)
-    return State(ray_st, MeanState(cast(du_st, mean.u), cast(dv_st, mean.v)))

@@ -1,6 +1,5 @@
 """Compute kernels: dispersion/group velocity, interpolation, the ray→grid
-projection scatter, and saturation.  All pure jnp (plus an optional pallas
-fast path for the projection)."""
+projection scatter, and saturation.  All pure jnp/lax, compiled by XLA."""
 
 from .interp import interp, uniform_interp, grid_interp  # noqa: F401
 from .dispersion import (  # noqa: F401

@@ -1,9 +1,11 @@
 """Linear interpolation of grid profiles onto ray heights.
 
 The reference uses ``np.interp`` (``lib/libprop.py:355-358,400,424,595``) —
-clamped linear interpolation onto a sorted 1-D grid.  On TPU this is a
-gather + fused multiply-add; because the reference grids are uniform we also
-provide a closed-form fast path that avoids ``searchsorted`` entirely.
+clamped linear interpolation onto a sorted 1-D grid.  This is a gather + a
+fused multiply-add; because the reference grids are uniform we also provide
+a closed-form fast path that avoids ``searchsorted`` entirely, and a dense
+hat-basis form (:func:`basis_interp`) that interpolates several tables at
+once as one contraction.
 """
 
 from __future__ import annotations
@@ -56,10 +58,10 @@ def basis_matrix(x, x0, dx, n):
     ``B @ fp`` equals clamped linear interpolation (``np.interp``) of any
     table ``fp`` on that grid.
 
-    MXU interp backend: TPU gathers over ~1e5 arbitrary indices serialize,
-    but the table is tiny (~100 entries), so interpolation of many tables at
-    the same query points is one ``(n_query, n_table)`` basis construction
-    (fused elementwise) + one matmul on the systolic array.
+    The ``mxu`` interp backend: the table is tiny (~100 entries), so
+    interpolation of many tables at the same query points is one
+    ``(n_query, n_table)`` basis construction (fused elementwise) + one
+    contraction, with no per-query gather.
     """
     x = jnp.asarray(x)
     xc = jnp.clip(x, x0, x0 + (n - 1) * dx)
@@ -72,6 +74,7 @@ def _basis_interp_raw(x, x0, dx, tables):
     return jax.lax.dot_general(
         B, tables,
         dimension_numbers=(((1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=tables.dtype,
     )
 
@@ -84,11 +87,10 @@ def _basis_interp_2d(x, x0, dx, tables):
     needs ``B`` for the tables cotangent, so XLA materializes the
     ``(n_query, n_table)`` basis matrix as a residual — ~400 MB per call
     at 1e6 rays (f32, 100 cells).  With six such interps per RK3 step
-    the adjoint becomes residual-bandwidth-bound: measured x = 3.83
-    forward-equivalents for the bare-RHS per-step transpose
-    (benchmarks/ADJOINT_PROFILE_r05.json).  This VJP stores only ``x``
-    and ``tables`` and REBUILDS the bases in the backward (fused
-    elementwise + matmul, nothing round-trips HBM):
+    the adjoint would become bound by the bandwidth of those residuals.
+    This VJP stores only ``x`` and ``tables`` and REBUILDS the bases in
+    the backward (fused elementwise + contraction, no basis round-trips
+    device memory):
 
     * tables cotangent:  Bᵀ(x) @ ct        (one rebuilt-basis matmul)
     * query cotangent:   ct ⊙ (B'(x) @ tables) / dx — the derivative of
@@ -121,6 +123,7 @@ def _basis_interp_bwd(res, ct):
     ct_tables = jax.lax.dot_general(
         B, ct,
         dimension_numbers=(((0,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=tables.dtype,
     )
     # hat-derivative basis, matching JAX's kink subgradients exactly so
@@ -134,6 +137,7 @@ def _basis_interp_bwd(res, ct):
     G = jax.lax.dot_general(
         dB, tables,
         dimension_numbers=(((1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=tables.dtype,
     )  # (n_query, k): ∂out/∂u per query, summed over nothing yet
     ctG = jnp.sum(ct * G, axis=1)  # (n_query,)

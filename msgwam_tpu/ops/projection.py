@@ -4,8 +4,12 @@ The reference implements this as a per-ray × per-cell Python double loop
 (``lib/libprop.py:92-221``) — it is where ~97% of the reference's runtime
 goes (SURVEY.md §6).  Here each ray volume's fractional overlap with grid
 cells becomes a statically-bounded sparse row of weights, and the deposition
-is a ``segment_sum`` scatter (XLA backend) or a dense block-matmul pallas
-kernel (TPU fast path, :mod:`msgwam_tpu.ops.projection_pallas`).
+is a ``segment_sum`` scatter (``xla`` backend, parity mode) or a dense
+weight-matrix contraction (``mxu`` backend, the f32 fast path).
+
+Every contraction here passes ``precision=HIGHEST``: the deposit bar is a
+1e-6 relative error against float64, and a float32 matrix product left at
+the default precision may run in TF32 on a GPU, which keeps ~3 digits.
 
 Faithfully reproduced reference semantics (needed for bit-parity):
 
@@ -78,8 +82,7 @@ def projection_weights(r_low, r_up, valid, grid, max_span: int):
 # Ray-axis block length for the wide-accumulation modes: partial deposits
 # are computed per block at working precision, then combined in a wider (or
 # compensated) reduction.  8192 keeps the worst-case in-block accumulation
-# error ~1e-7 relative (measured 3.6e-8 at 1e6 rays) while the per-block
-# matmuls stay MXU-sized.
+# error ~1e-7 relative while the per-block contractions stay large.
 ACCUM_BLOCK = 8192
 
 
@@ -108,7 +111,7 @@ def _reduce_partials(parts, accum: str, out_dtype):
       * ``"native"`` — plain sum at working precision;
       * ``"f64"``    — upcast partials to float64, sum, cast back (needs
         ``jax_enable_x64``; raises otherwise rather than silently degrading);
-      * ``"compensated"`` — Kahan summation at working precision (the TPU
+      * ``"compensated"`` — Kahan summation at working precision (the f32
         fast path: no x64 dependency, same <1e-7 accuracy).
     """
     if accum == "native":
@@ -206,20 +209,16 @@ def _dense_deposit(values, r_low, r_up, phase_vol, valid, grid):
     conventions to plain autodiff by construction
     (tests/test_projection.py).
 
-    Honest scope note: unlike the analogous interp VJP
-    (``ops/interp.py:_basis_interp_2d``, measured −22% on the per-step
-    transpose), this one measured *timing-neutral* at 1e6 rays — XLA was
-    evidently already rematerializing the weight build into the backward
-    for this graph (per-step fwd+bwd 9.56 ms before and after;
-    benchmarks/ADJOINT_PROFILE_r05.json).  It is kept because it makes
-    that rematerialization a *guarantee* rather than a scheduler choice:
-    the ~400 MB/deposit residual can never reappear under a different
-    fusion decision, jax version, or problem shape.
+    It makes rematerialization of the weight build a *guarantee* rather
+    than a scheduler choice: the ~400 MB/deposit residual (1e6 f32 rays)
+    can never reappear under a different fusion decision, jax version, or
+    problem shape.
     """
     w = _dense_weights(r_low, r_up, phase_vol, valid, grid)
     return jax.lax.dot_general(
         values, w,
         dimension_numbers=(((1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=values.dtype,
     )
 
@@ -231,7 +230,7 @@ def _dense_deposit_fwd(values, r_low, r_up, phase_vol, valid, grid):
 
 def _dense_deposit_bwd(res, ct):
     # Analytic transpose of the weight construction — one fused
-    # elementwise (n, n_cells) pass + two MXU matmuls, instead of the
+    # elementwise (n, n_cells) pass + two contractions, instead of the
     # ~10 passes a nested jax.vjp of _dense_weights generates.  Kink/tie
     # subgradients reproduce JAX's measured conventions exactly
     # (abs'(0) = 1; maximum/minimum ties split 0.5/0.5), validated
@@ -257,11 +256,13 @@ def _dense_deposit_bwd(res, ct):
     ct_values = jax.lax.dot_general(
         ct, w,
         dimension_numbers=(((1,), (1,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=values.dtype,
     )                                                       # (nvar, n)
     ctm = jnp.where(mask, jax.lax.dot_general(
         values, ct,
         dimension_numbers=(((0,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=values.dtype,
     ), 0.0)                                                 # (n, n_cells)
 
@@ -291,14 +292,12 @@ _dense_deposit.defvjp(_dense_deposit_fwd, _dense_deposit_bwd)
 
 def project_dense(values, r_low, r_up, phase_vol, valid, grid, max_span=None,
                   accum: str = "native"):
-    """MXU projection backend: the deposit is a *dense* weight matrix
-    contraction instead of a scatter.
+    """The ``mxu`` projection backend: the deposit is a *dense* weight
+    matrix contraction instead of a scatter.
 
-    TPU scatters (``segment_sum``) serialize (~4x slower than this form)
-    and per-ray gathers are worse still; the grid is tiny (~100 cells), so
-    the full per-(ray, cell) overlap-weight matrix is cheap to build with
-    lane-parallel VPU ops and the reduction over rays is one systolic-array
-    matmul ``(nvar, n) @ (n, C)`` (measured costs: docs/design.md §3).
+    The grid is tiny (~100 cells), so the full per-(ray, cell)
+    overlap-weight matrix is cheap to build elementwise, and the reduction
+    over rays is one contraction ``(nvar, n) @ (n, C)`` with no scatter.
     Semantics (index
     arithmetic, clamping, out-of-domain mask, |overlap|) are identical to
     :func:`project`; only the summation order differs (parity mode should
@@ -311,8 +310,8 @@ def project_dense(values, r_low, r_up, phase_vol, valid, grid, max_span=None,
     ``(nvar, n) @ (n, C)`` contraction at working precision; ``"f64"`` /
     ``"compensated"`` split the ray axis into :data:`ACCUM_BLOCK`-long
     blocks (one batched matmul), then combine the per-block partials in
-    float64 / Kahan-compensated arithmetic — measured deposit error ~1e-7
-    relative at 1e6 float32 rays vs 4.4e-6 for the plain f32 contraction.
+    float64 / Kahan-compensated arithmetic — deposit error ~1e-7 relative
+    at 1e6 float32 rays, where the plain f32 contraction exceeds 1e-6.
     """
     values = jnp.atleast_2d(values)
     n_cells = grid.shape[0] - 1
@@ -330,12 +329,14 @@ def project_dense(values, r_low, r_up, phase_vol, valid, grid, max_span=None,
         parts.append(jax.lax.dot_general(
             vb, wb,
             dimension_numbers=(((2,), (1,)), ((1,), (0,))),
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=values.dtype,
         ))                                                  # (nb, nvar, C)
     if n - nb * ACCUM_BLOCK:
         parts.append(jax.lax.dot_general(
             values[:, nb * ACCUM_BLOCK:], w[nb * ACCUM_BLOCK:],
             dimension_numbers=(((1,), (0,)), ((), ())),
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=values.dtype,
         )[None])                                            # (1, nvar, C)
     parts = parts[0] if len(parts) == 1 else jnp.concatenate(parts)
@@ -346,17 +347,13 @@ PROJECT_BACKENDS = {"xla": project, "mxu": project_dense}
 
 
 def project_backend(name: str):
-    if name == "pallas":
-        from .projection_pallas import project_pallas
-
-        return project_pallas
     try:
         return PROJECT_BACKENDS[name]
     except KeyError:
         raise ValueError(
             f"unknown projection backend {name!r}; available: "
-            f"{sorted(PROJECT_BACKENDS) + ['pallas']}"
-        )
+            f"{sorted(PROJECT_BACKENDS)}"
+        ) from None
 
 
 def project_interfaces(values, r_low, r_up, phase_vol, valid, grid):
@@ -382,7 +379,8 @@ def project_interfaces(values, r_low, r_up, phase_vol, valid, grid):
         & (nb[None, :] < n_points - 1)
     )                                                       # (n, G)
     w = straddle.astype(values.dtype) * phase_vol[:, None]
-    return values @ w                                       # (nvar, G)
+    return jnp.matmul(values, w,
+                      precision=jax.lax.Precision.HIGHEST)  # (nvar, G)
 
 
 def project_reference_variant(

@@ -57,8 +57,8 @@ def saturation_cap(
     phase_volume = dkk * dll * dmm_final
 
     # GRAD-SAFE singular divisions.  When a ray's m crosses zero within a
-    # step, m_final^2 lands in (or below) f32 denormal range — the TPU
-    # flushes it to 0, the cap becomes inf, and although the forward is
+    # step, m_final^2 lands in (or below) f32 denormal range — a device
+    # that flushes denormals makes it 0, the cap becomes inf, and although the forward is
     # unaffected (an astronomically large cap is never selected by
     # `exceed`), the backward of the division then emits inf * 0 = NaN
     # through the jnp.where cotangent, poisoning every gradient entry

@@ -1,4 +1,4 @@
-"""Multi-chip scaling: ray-axis sharding over an ICI mesh and ensemble
+"""Multi-chip scaling: ray-axis sharding over a device mesh and ensemble
 fan-out.  No reference counterpart — the reference is one Python process on
 one CPU core (SURVEY.md §2 rows 21-22)."""
 

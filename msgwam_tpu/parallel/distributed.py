@@ -1,14 +1,14 @@
-"""Multi-host (DCN) setup.
+"""Multi-host setup.
 
-Single-host multi-chip needs nothing — ``jax.devices()`` sees the whole
-ICI-connected slice.  For multi-host pods (BASELINE config 5 at scale), JAX
-needs one ``jax.distributed.initialize`` per process before first use; this
-wrapper standardizes that and returns the global mesh helpers.
+A single host needs nothing — ``jax.devices()`` sees every local card.
+For several hosts (BASELINE config 5 at scale), JAX needs one
+``jax.distributed.initialize`` per process before first use; this wrapper
+standardizes that and returns the global mesh helpers.
 
-Communication pattern stays unchanged: the per-RHS flux ``psum`` rides ICI
-within a slice; only ensemble members should ever be split across DCN
+Communication pattern stays unchanged: the per-RHS flux ``psum`` stays
+within a host; only ensemble members should ever be split across hosts
 (members never communicate), so lay the ``('ensemble', 'rays')`` mesh out
-with ``ensemble`` as the outer (slower, DCN-crossing) axis.
+with ``ensemble`` as the outer (slower, host-crossing) axis.
 """
 
 from __future__ import annotations

@@ -49,7 +49,6 @@ def ensemble_simulate(
     observe: Optional[Callable] = None,
     axis: str = ENSEMBLE_AXIS,
     sequential: bool = False,
-    backend: str = "scan",
     sources=None,
     wind_fn=None,
     t0: float = 0.0,
@@ -58,68 +57,15 @@ def ensemble_simulate(
     ``states``/``statics``), sharded over ``mesh`` if given.
 
     ``sequential=True`` runs members one after another (``lax.map``) instead
-    of batching them — the right choice when members outnumber devices:
-    batching (vmap) the dense-matmul projection defeats XLA's
-    weight-generation fusion (measured 180 ms/step for 8×125k members on one
-    chip vs ~2.8 ms/step for the same 1e6 rays in one member), while
-    sequential members each run at full single-member speed.
+    of batching them — the right choice when members outnumber devices and
+    each member is large: batching (vmap) the dense projection can defeat
+    XLA's fusion of the weight construction into the contraction, while
+    sequential members each run at single-member speed.
 
-    ``backend="mega"`` routes the whole batch through
-    :func:`msgwam_tpu.simulate_streaming_ensemble` — each device runs its
-    local members as ONE whole-run streaming-megakernel launch per
-    ``save_every`` window (members partitioned over the kernel's tile
-    range), ~1.4× the scan path's throughput per device.  Scope: online
-    saturation, f32; in-kernel cull/relaunch run per member when
-    ``cfg.cull``/``cfg.relaunch`` (pass ``sources`` as a stacked
-    per-member template pair), and a member-shared prescribed transient
-    wind (``wind_fn``, e.g. tidal shear) is broadcast to every member's
-    wind block in-kernel; ``observe`` is rejected — the return is
-    ``(final, statics, mean_history)`` with ``mean_history`` transposed
-    to the scan backend's member-leading ``(E, n_chunks, n_cell)`` layout
-    (the raw :func:`simulate_streaming_ensemble` contract is
-    frame-leading), and every leaf sharded ``P(axis)`` over ``mesh``
-    (members must divide the mesh axis).
+    ``sources`` (a stacked per-member ``(RayState, RayStatics)`` template
+    pair) enables relaunch per member; ``wind_fn``/``t0`` prescribe a
+    member-shared transient background, as in :func:`simulate`.
     """
-    if backend == "mega":
-        from ..ops.step_pallas_stream import simulate_streaming_ensemble
-
-        if observe is not None:
-            raise ValueError(
-                "backend='mega' returns the per-member mean history "
-                "directly and does not support an observe callback; "
-                "post-process its mean_history or use backend='scan'")
-        if sequential:
-            raise ValueError(
-                "backend='mega' batches all local members into one kernel "
-                "launch; sequential=True is a scan-backend option")
-
-        def _member_leading(out):
-            fin, st_, mh = out
-            mh = jax.tree.map(lambda x: jnp.moveaxis(x, 0, 1), mh)
-            return fin, st_, mh
-
-        if mesh is None:
-            return _member_leading(simulate_streaming_ensemble(
-                states, statics, bg, cfg, run, sources=sources,
-                wind_fn=wind_fn, t0=t0))
-        if cfg.relaunch and sources is not None:
-            # eager template guard, before the values disappear into
-            # shard_map tracers (where the impl's check must skip)
-            from ..ops.step_pallas_stream import _check_relaunch_template
-
-            _check_relaunch_template(sources[0], sources[1],
-                                     states.rays, statics)
-        fn = _mega_sharded_fn(mesh, bg, cfg, run, axis,
-                              sources is not None, wind_fn, t0)
-        shard = NamedSharding(mesh, P(axis))
-        states = jax.tree.map(lambda x: jax.device_put(x, shard), states)
-        statics = jax.tree.map(lambda x: jax.device_put(x, shard), statics)
-        if sources is None:
-            return _member_leading(fn(states, statics))
-        sources = jax.tree.map(lambda x: jax.device_put(x, shard), sources)
-        return _member_leading(fn(states, statics, sources))
-    if backend != "scan":
-        raise ValueError(f"unknown ensemble backend {backend!r}")
     fn = build_ensemble_fn(
         cfg, run, mesh=mesh, observe=observe, axis=axis,
         sequential=sequential, with_source=sources is not None,
@@ -139,54 +85,6 @@ def ensemble_simulate(
 
 def _default_observe(s, st, aux):
     return s.mean
-
-
-# bounded cache for the mega-backend's jitted shard_map programs: jit is
-# keyed on function identity, so rebuilding the closure per call would
-# recompile the whole-run kernel program every invocation.  bg is closed
-# over (the streaming driver reads grid geometry host-side at trace
-# time), so the cache keys on the identity of its leaves and keeps a
-# strong reference to them (ids stay valid while the entry lives).
-_MEGA_COMPILED = OrderedDict()
-_MEGA_COMPILED_MAX = 8
-
-
-def _mega_sharded_fn(mesh, bg, cfg, run, axis, with_sources,
-                     wind_fn=None, t0=0.0):
-    from ..ops.step_pallas_stream import simulate_streaming_ensemble
-    from ..state import MeanState, RayState, State
-
-    key = (mesh, cfg, run, axis, with_sources, wind_fn, float(t0),
-           tuple(id(l) for l in jax.tree.leaves(bg)))
-    hit = _MEGA_COMPILED.get(key)
-    if hit is not None:
-        _MEGA_COMPILED.move_to_end(key)
-        return hit[1]
-
-    ray_specs = State(RayState(*([P(axis)] * 9)),
-                      MeanState(P(axis), P(axis)))
-    st_specs = RayStatics(*([P(axis)] * 4))
-    out_spec = (ray_specs, st_specs, MeanState(P(None, axis),
-                                               P(None, axis)))
-    if with_sources:
-        body = lambda s, st, src: simulate_streaming_ensemble(
-            s, st, bg, cfg, run, sources=src, wind_fn=wind_fn, t0=t0)
-        in_specs = (ray_specs, st_specs,
-                    (RayState(*([P(axis)] * 9)), st_specs))
-    else:
-        body = lambda s, st: simulate_streaming_ensemble(
-            s, st, bg, cfg, run, wind_fn=wind_fn, t0=t0)
-        in_specs = (ray_specs, st_specs)
-    fn = jax.jit(jax.shard_map(
-        body, mesh=mesh, in_specs=in_specs, out_specs=out_spec,
-        # pallas_call out_shapes carry no varying-across-mesh annotation
-        # (same as parallel/sharding.py)
-        check_vma=False,
-    ))
-    if len(_MEGA_COMPILED) >= _MEGA_COMPILED_MAX:
-        _MEGA_COMPILED.popitem(last=False)
-    _MEGA_COMPILED[key] = (bg, fn)
-    return fn
 
 
 @functools.lru_cache(maxsize=64)

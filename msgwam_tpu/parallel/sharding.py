@@ -5,7 +5,7 @@ onto the shared vertical grid inside the RHS (the reference's single
 ray→grid transpose, ``lib/libprop.py:653-663``).  We shard the ray axis
 with ``shard_map``; each shard scatters its local pseudo-momentum flux
 (O(n_cell) floats) and a single ``psum`` per RHS evaluation — 3 per RK3
-step, riding ICI — produces the replicated profile, after which every shard
+step — produces the replicated profile, after which every shard
 computes the identical mean-flow update (kept replicated by construction).
 
 The mean-flow state, background, and config are replicated; per-shard ray
@@ -83,15 +83,11 @@ def sharded_step_fn(
         state, statics, _ = step(dt, state, statics, bg, cfg, axis_name=axis)
         return state, statics
 
-    # check_vma=False: pallas_call out_shapes carry no varying-across-mesh
-    # annotation, which jax>=0.9's shard_map would otherwise reject when a
-    # pallas RHS backend runs per-shard
     mapped = jax.shard_map(
         body,
         mesh=mesh,
         in_specs=(state_spec, statics_spec),
         out_specs=(state_spec, statics_spec),
-        check_vma=False,
     )
     return jax.jit(mapped)
 
@@ -183,7 +179,6 @@ def build_sharded_simulate_fn(
             body, mesh=mesh,
             in_specs=(state_spec, statics_spec, bg_spec),
             out_specs=(state_spec, statics_spec, observe_spec),
-            check_vma=False,
         )(state, statics, bg)
 
     def run_src(state, statics, bg, source):
@@ -191,7 +186,6 @@ def build_sharded_simulate_fn(
             body, mesh=mesh,
             in_specs=(state_spec, statics_spec, bg_spec, source_spec),
             out_specs=(state_spec, statics_spec, observe_spec),
-            check_vma=False,
         )(state, statics, bg, source)
 
     def dispatch(state, statics, bg, source=None):

@@ -113,7 +113,7 @@ def make_background(
     """
     # Host-side NumPy arithmetic throughout: init runs once, and NumPy's
     # exp/linspace match the reference bit-for-bit, whereas device
-    # transcendentals (XLA exp — or worse, TPU-emulated float64) differ at
+    # transcendentals (XLA exp) differ at
     # the ULP level and seed trajectory divergence through the model's
     # discontinuous saturation clamps (measured round 2: jnp.exp rhobar
     # differed on 12/100 cells; with NumPy init a full 1440-step CPU run

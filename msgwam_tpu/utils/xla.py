@@ -5,9 +5,17 @@ from __future__ import annotations
 import os
 
 # XLA's while-loop unroller makes long `lax.scan` compiles scale with trip
-# count (measured: 1440-step scan 47 s -> 13 s with the pass disabled, same
-# runtime).  Harmless elsewhere.
+# count (measured on XLA:CPU: 1440-step scan 47 s -> 13 s with the pass
+# disabled, same runtime).  Harmless elsewhere.
 _DISABLE_UNROLLER = "--xla_disable_hlo_passes=while_loop_unroller"
+
+# The persistent compilation cache's default home: a fixed directory inside
+# the checkout (listed in .gitignore).  The path is part of the cache key, so
+# it must never depend on a temporary name, a pid or the time.
+DEFAULT_COMPILE_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
 def recommended_xla_flags() -> str:
@@ -22,40 +30,34 @@ def apply_recommended_xla_flags() -> None:
         os.environ["XLA_FLAGS"] = f"{cur} {_DISABLE_UNROLLER}".strip()
 
 
-def enable_persistent_compile_cache(path: str | None = None) -> str | None:
-    """Point JAX's persistent compilation cache at a per-user directory.
+def compile_cache_dir() -> str:
+    """``JAX_COMPILATION_CACHE_DIR`` when set, else
+    :data:`DEFAULT_COMPILE_CACHE_DIR`."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_COMPILE_CACHE_DIR
 
-    The whole-run megakernel launches compile in tens of seconds (an
-    8000-step resident launch ~20-40 s cold); the persistent cache makes
-    every rerun of the same configuration hit disk instead.  Resolution
-    order: explicit ``path`` argument, then the ``MSGWAM_COMPILE_CACHE``
-    environment variable (set to ``0``/``off`` to disable; an explicit
-    ``path`` argument wins over the env kill-switch), then
-    ``~/.cache/msgwam_tpu/xla-cache``.  Only compilations slower than 2 s
-    are persisted, so tiny test programs don't churn the cache.  Returns
-    the cache directory, or ``None`` when disabled.  Safe to call more
-    than once and at any point (JAX consults the config per compile).
+
+def enable_persistent_compile_cache() -> str | None:
+    """Turn on JAX's persistent compilation cache at :func:`compile_cache_dir`.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, that directory is used and no
+    other is set in code.  Otherwise the cache lives at the fixed in-checkout
+    path, except on the CPU backend: XLA:CPU persists AOT executables whose
+    machine-feature stamp can differ between the compiling and the loading
+    process, and CPU compiles are cheap anyway.  Only compilations slower
+    than 2 s are persisted.  Returns the cache directory, or ``None`` when
+    the cache stays off.  Safe to call more than once.
     """
-    env = os.environ.get("MSGWAM_COMPILE_CACHE")
-    if (path is None and env is not None
-            and env.lower() in ("0", "off", "false", "")):
-        return None
     import jax
 
-    if path is None and env is None and jax.default_backend() == "cpu":
-        # XLA:CPU persists AOT executables whose machine-feature stamp can
-        # differ between the compiling and loading process (feature-detect
-        # noise), producing loud load warnings — and CPU compiles are cheap
-        # anyway.  Opt in explicitly via path/env to cache on CPU.
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not env and jax.default_backend() == "cpu":
         return None
-    cache_dir = path or env or os.path.join(
-        os.path.expanduser("~"), ".cache", "msgwam_tpu", "xla-cache")
+    cache_dir = compile_cache_dir()
     try:
         os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:
-        # cache misconfiguration must never break a run (e.g. read-only
-        # home, or a JAX build without the persistent-cache options)
+    except OSError:
+        # a read-only checkout must not break a run; it only loses the cache
         return None
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
     return cache_dir

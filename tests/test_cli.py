@@ -12,7 +12,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run(args, env_extra=None, **kw):
-    env = dict(os.environ, JAX_PLATFORM_NAME="cpu", MPLBACKEND="Agg")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", MPLBACKEND="Agg")
     if env_extra:
         env.update(env_extra)
     return subprocess.run(
@@ -78,76 +78,21 @@ def test_steps_override_keeps_save_every_divisible():
     assert spec["run"]["save_every"] == 1
 
 
-def test_kernels_flag(tmp_path):
-    """--kernels windowed drives the adaptive pallas RHS through the CLI
-    (interpret mode on CPU) and produces finite diagnostics."""
+@pytest.mark.parametrize("kernels", ["xla", "mxu"])
+def test_kernels_flag(tmp_path, kernels):
+    """--kernels picks the scan path's backend pair through the CLI and
+    produces finite diagnostics."""
     out = tmp_path / "w"
     r = _run(["run", "--preset", "fast", "--steps", "4", "--out", str(out),
-              "--no-plot", "--kernels", "windowed"])
+              "--no-plot", "--kernels", kernels])
     assert r.returncode == 0, r.stderr[-2000:]
     d = np.load(out / "diagnostics.npz")
     assert np.all(np.isfinite(d["wave_action"]))
 
-
-def test_kernels_mega_flag(tmp_path):
-    """--kernels mega routes an eligible f32 run through the whole-run
-    megakernel (interpret mode on CPU); an ineligible config (f64
-    reference preset) prints the fallback reason and still succeeds."""
-    spec = {
-        "model": {"u0": 4.0, "phi0": 0.0, "kappa": 1.0, "hprop": False,
-                  "saturate_online": True, "rr0": 40000.0},
-        "grid": {"n_face": 101, "z_max": 100e3},
-        "run": {"dt": 120.0, "n_steps": 4, "save_every": 2},
-        "source": {"kind": "gaussian_spectrum", "n_ray": 300},
-        "background": "sine",
-        "dtype": "float32",
-    }
-    cfg_path = tmp_path / "mega.json"
-    cfg_path.write_text(json.dumps(spec))
-    out = tmp_path / "m"
-    r = _run(["run", "--config", str(cfg_path), "--out", str(out),
-              "--no-plot", "--kernels", "mega"])
-    assert r.returncode == 0, r.stderr[-2000:]
-    assert "falling back" not in r.stdout
-    d = np.load(out / "diagnostics.npz")
-    assert np.all(np.isfinite(d["wave_action"]))
-
-    # f64 reference preset: printed fallback, windowed kernel runs instead
-    out2 = tmp_path / "m64"
-    r2 = _run(["run", "--preset", "reference", "--steps", "4",
-               "--out", str(out2), "--no-plot", "--kernels", "mega"])
-    assert r2.returncode == 0, r2.stderr[-2000:]
-    assert "falling back" in r2.stdout
-
-
-def test_kernels_mega_lifecycle(tmp_path):
-    """--kernels mega with cull+relaunch routes to the streaming
-    lifecycle kernel (no fallback) and produces finite diagnostics."""
-    spec = {
-        "model": {"u0": 4.0, "phi0": 0.0, "kappa": 1.0, "hprop": False,
-                  "saturate_online": True, "rr0": 40000.0,
-                  "cull": True, "relaunch": True},
-        "grid": {"n_face": 101, "z_max": 100e3},
-        "run": {"dt": 120.0, "n_steps": 4, "save_every": 2},
-        "source": {"kind": "gaussian_spectrum", "n_ray": 300},
-        "background": "sine",
-        "dtype": "float32",
-    }
-    cfg_path = tmp_path / "mega_lc.json"
-    cfg_path.write_text(json.dumps(spec))
-    out = tmp_path / "mlc"
-    r = _run(["run", "--config", str(cfg_path), "--out", str(out),
-              "--no-plot", "--kernels", "mega"])
-    assert r.returncode == 0, r.stderr[-2000:]
-    assert "falling back" not in r.stdout
-    d = np.load(out / "diagnostics.npz")
-    assert np.all(np.isfinite(d["wave_action"]))
 
 def test_kernels_in_config_file_installs_backends():
-    """A config FILE specifying "kernels" must get the same model-backend
-    overrides as the --kernels flag (it used to be read by run_experiment
-    but ignored by _load_config, so a file-level "mega" silently ran the
-    default scan backends)."""
+    """A config FILE specifying "kernels" gets the same model-backend
+    overrides as the --kernels flag."""
     import argparse
     import json as _json
     from msgwam_tpu.cli import _load_config
@@ -170,22 +115,21 @@ def test_kernels_in_config_file_installs_backends():
             "source": {"kind": "gaussian_spectrum", "n_ray": 64},
             "dtype": "float32"}
 
-    spec = load({**base, "kernels": "mega"})
-    assert spec["model"]["rhs_backend"] == "pallas"
+    spec = load({**base, "kernels": "mxu"})
     assert spec["model"]["projection_backend"] == "mxu"
-    # windows stay unset: the ModelConfig auto sentinel (-1) flows through
-    # so the megakernel drivers resolve the per-size champion ladder
-    assert "window_cells" not in spec["model"]
+    assert spec["model"]["interp_backend"] == "mxu"
 
     # file-set model keys win over the file-level kernels defaults...
-    spec = load({**base, "kernels": "windowed",
-                 "model": {"window_cells": 32}})
-    assert spec["model"]["window_cells"] == 32
-    assert spec["model"]["rhs_backend"] == "pallas"
+    spec = load({**base, "kernels": "mxu",
+                 "model": {"interp_backend": "gather"}})
+    assert spec["model"]["interp_backend"] == "gather"
+    assert spec["model"]["projection_backend"] == "mxu"
 
     # ...but the --kernels flag overrides the file's model block
-    spec = load({**base, "model": {"rhs_backend": "xla"}}, kernels="pallas")
-    assert spec["model"]["rhs_backend"] == "pallas"
+    spec = load({**base, "model": {"projection_backend": "mxu"}},
+                kernels="xla")
+    assert spec["model"]["projection_backend"] == "xla"
+    assert spec["model"]["interp_backend"] == "gather"
 
 
 def test_shard_flag(tmp_path):
@@ -232,18 +176,8 @@ def test_shard_flag(tmp_path):
     assert "divisible by the device count" in (r3.stderr + r3.stdout)
 
 
-def test_shard_demotes_mega(tmp_path):
-    """--kernels mega --shard prints the fallback and runs the sharded
-    scan path."""
-    out = tmp_path / "sm"
-    r = _run(["run", "--preset", "fast", "--steps", "2", "--out", str(out),
-              "--no-plot", "--kernels", "mega", "--shard"])
-    assert r.returncode == 0, r.stderr[-2000:]
-    assert "falling back" in r.stdout and "scan path" in r.stdout
-
-
 def test_transient_background_tidal(tmp_path):
-    """A JSON config can name a transient background (VERDICT r3 #5):
+    """A JSON config can name a transient background:
     ``"background": {"kind": "tidal", ...}`` builds the wind_fn from
     cli.TRANSIENT_BACKGROUNDS, the run is finite, and the imposed mean
     wind in the history equals tidal_shear at the frame times."""
@@ -358,3 +292,20 @@ def test_transient_background_rejects_shard_and_unknown(tmp_path):
               str(tmp_path / "o2"), "--no-plot"])
     assert r.returncode != 0
     assert "unknown transient background" in (r.stderr + r.stdout)
+
+
+def test_missing_matplotlib_fails_before_the_run(tmp_path, monkeypatch):
+    """Without matplotlib, a plotting run stops before any compute with a
+    hint to pass --no-plot."""
+    import importlib.util
+
+    from msgwam_tpu import cli
+
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name == "matplotlib"
+                        else real(name, *a))
+    monkeypatch.setattr(cli, "setup_experiment",
+                        lambda spec: pytest.fail("the run started"))
+    with pytest.raises(RuntimeError, match="--no-plot"):
+        cli.run_experiment(cli.PRESETS["reference"], str(tmp_path / "o"))

@@ -1,7 +1,7 @@
 """Multi-host (multi-process) path: 2 CPU processes × 2 devices each,
 gloo cross-process collectives, driving a real sharded model step through
 ``parallel.distributed`` — and matching the single-process answer
-(VERDICT r1 item 5: the DCN code path must be executed, not just shipped)."""
+(the multi-host code path must be executed, not just shipped)."""
 
 import json
 import os
@@ -22,7 +22,7 @@ WORKER = r"""
 import json, sys
 pid = int(sys.argv[1]); port = sys.argv[2]
 import jax
-jax.config.update("jax_platform_name", "cpu")
+jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 2)
 jax.config.update("jax_enable_x64", True)
 sys.path.insert(0, %(repo)r)

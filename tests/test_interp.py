@@ -38,7 +38,7 @@ def test_uniform_interp_matches_numpy(rng):
 
 
 def test_basis_interp_matches_numpy(rng):
-    """The MXU (hat-basis matmul) backend reproduces clamped linear
+    """The mxu (hat-basis contraction) backend reproduces clamped linear
     interpolation."""
     x, xp, fp = _case(rng)
     expect = np.interp(x, xp, fp)

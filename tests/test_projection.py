@@ -7,7 +7,6 @@ import pytest
 import jax.numpy as jnp
 
 from msgwam_tpu.ops.dispersion import cg_r
-from msgwam_tpu.ops.projection_pallas import project_pallas
 from msgwam_tpu.ops.projection import (
     project,
     project_dense,
@@ -86,22 +85,6 @@ def test_project_matches_oracle(rng, backend, n_points):
         max_span=required_span(2500.0, grid[1] - grid[0]),
     )
     np.testing.assert_allclose(np.asarray(got), expect, rtol=1e-12, atol=1e-12)
-
-
-@pytest.mark.parametrize("n_points", [101, 100])
-def test_project_pallas_matches_oracle(rng, n_points):
-    """The pallas TPU kernel (float32; interpret mode on CPU) against the
-    float64 oracle at f32 tolerance."""
-    grid = np.linspace(0.0 if n_points == 101 else 500.0, 100e3, n_points)
-    vals, r_low, r_up, pv, valid = _random_rays(rng, 400)
-    expect = oracle_cells(vals, r_low, r_up, pv, valid, grid)
-    got = np.asarray(project_pallas(
-        jnp.asarray(vals, jnp.float32), jnp.asarray(r_low, jnp.float32),
-        jnp.asarray(r_up, jnp.float32), jnp.asarray(pv, jnp.float32),
-        jnp.asarray(valid), jnp.asarray(grid, jnp.float32),
-    ))
-    scale = np.max(np.abs(expect)) + 1e-30
-    assert np.max(np.abs(got - expect)) / scale < 2e-5
 
 
 def test_project_valid_none(rng):

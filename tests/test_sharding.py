@@ -17,9 +17,8 @@ from msgwam_tpu.parallel import (
 )
 
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs 8 (virtual) devices"
-)
+# the device count is read inside the fixture (conftest.py), never at import
+pytestmark = pytest.mark.usefixtures("eight_devices")
 
 
 def _setup(capacity=64):
@@ -169,55 +168,9 @@ def test_sharded_with_cull_and_relaunch():
     np.testing.assert_array_equal(np.asarray(stf.active), np.asarray(refst.active))
 
 
-def test_ensemble_mega_backend_sharded_matches_members():
-    """backend="mega" shards members across the mesh, each device running
-    its local members as one streaming-megakernel launch; every member
-    must match its own single-member streaming run."""
-    from msgwam_tpu.ops.step_pallas_stream import simulate_streaming
-
-    cfg = mt.REFERENCE_RUN_CONFIG.replace(
-        saturate_online=True, dtype="float32",
-        projection_backend="mxu", interp_backend="mxu")
-    gc = mt.GridConfig()
-    centers = gc.centers()
-    uu = np.asarray(mt.velocities_sine_homogeneous(
-        jnp.asarray(centers, jnp.float32), cfg)).astype(np.float32)
-    bg = mt.make_background(gc, cfg, uu, np.zeros_like(uu),
-                            dtype=jnp.float32)
-    E = 4
-    members = []
-    for e in range(E):
-        rays, statics = mt.gaussian_spectrum_source(
-            cfg, bg, 500, amplitude_alpha=0.003 * (1 + 0.2 * e),
-            dtype=jnp.float32)
-        members.append((mt.State(rays, mt.MeanState(
-            jnp.asarray(uu), jnp.zeros_like(jnp.asarray(uu)))), statics))
-    bstates, bstatics = stack_ensemble(members)
-    run = mt.RunConfig(dt=120.0, n_steps=4, save_every=2)
-
-    # 2 devices x 2 members each: multi-member shards
-    mesh = jax.make_mesh((2,), ("ensemble",), devices=jax.devices()[:2])
-    fin, _, mh = ensemble_simulate(bstates, bstatics, bg, cfg, run,
-                                   mesh=mesh, backend="mega")
-    # member-leading, matching the scan backend's history layout
-    assert mh.u.shape == (E, 2, uu.shape[0])
-    # gather the sharded outputs to host before scalar member indexing
-    fin = jax.tree.map(lambda x: np.asarray(jax.device_get(x)), fin)
-    for e in range(E):
-        s1, st1 = members[e]
-        f1, _, _ = simulate_streaming(s1, st1, bg, cfg, run)
-        for a, b in ((f1.rays.dens, fin.rays.dens[e]),
-                     (f1.rays.r, fin.rays.r[e]),
-                     (f1.mean.u, fin.mean.u[e])):
-            a = np.asarray(a)
-            assert np.abs(a - b).max() <= 1e-5 * max(np.abs(a).max(), 1e-30)
-
-
 def test_ensemble_scan_backend_sources_relaunch():
-    """backend="scan" with stacked per-member relaunch templates: every
-    member must match its own simulate(source=...) run (previously the
-    sources argument was mega-only and would have been silently dropped
-    on the scan path)."""
+    """Stacked per-member relaunch templates: every member must match its
+    own simulate(source=...) run, batched and sharded."""
     cfg = mt.REFERENCE_RUN_CONFIG.replace(
         cull=True, relaunch=True, m_max=2 * np.pi / 3500.0,
     )

@@ -2,8 +2,10 @@
 
 import json
 import logging
+import os
 
 import numpy as np
+import pytest
 
 from msgwam_tpu.utils.metrics import MetricsLogger
 from msgwam_tpu.utils.profiling import StepTimer
@@ -52,73 +54,53 @@ def test_plotting_smoke(tmp_path):
     assert (tmp_path / "w.png").exists()
 
 
-def test_persistent_compile_cache(tmp_path, monkeypatch):
+@pytest.fixture()
+def _restore_cache_config():
     import jax
-    from msgwam_tpu.utils.xla import enable_persistent_compile_cache
 
     prev = jax.config.jax_compilation_cache_dir
     prev_min = jax.config.jax_persistent_cache_min_compile_time_secs
-    try:
-        # explicit path wins and the directory is created
-        d = tmp_path / "xla-cache"
-        assert enable_persistent_compile_cache(str(d)) == str(d)
-        assert d.is_dir()
-        assert jax.config.jax_compilation_cache_dir == str(d)
-        # env var disables...
-        monkeypatch.setenv("MSGWAM_COMPILE_CACHE", "off")
-        assert enable_persistent_compile_cache() is None
-        # ...but an explicit path argument beats the env kill-switch
-        # (the documented resolution order, ADVICE r3)
-        assert enable_persistent_compile_cache(str(d)) == str(d)
-        # env var supplies the path
-        d2 = tmp_path / "other"
-        monkeypatch.setenv("MSGWAM_COMPILE_CACHE", str(d2))
-        assert enable_persistent_compile_cache() == str(d2)
-        assert d2.is_dir()
-    finally:
-        jax.config.update("jax_compilation_cache_dir", prev)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          prev_min)
+    yield
+    jax.config.update("jax_compilation_cache_dir", prev)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", prev_min)
 
 
-def test_resolve_champion_ladder():
-    """The measured champion ladder is library-owned (VERDICT r3 #3):
-    resolve_champion returns the per-size kernel settings, apply_champion
-    resolves only the -1 auto sentinels and honors explicit values."""
-    from msgwam_tpu.config import ModelConfig
-    from msgwam_tpu.ops.rhs_pallas import apply_champion, resolve_champion
+def test_persistent_compile_cache(tmp_path, monkeypatch, _restore_cache_config):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the cache and nothing else
+    is set in code; the directory is created."""
+    import jax
+    from msgwam_tpu.utils.xla import enable_persistent_compile_cache
 
-    # resident regime: W=24, no tier-2; streaming regime: W=16 + W2=96
-    small = resolve_champion(100_000)
-    assert (small["window_cells"], small["window_cells2"]) == (24, 0)
-    big = resolve_champion(1_000_000)
-    assert (big["window_cells"], big["window_cells2"]) == (16, 96)
-    # sorted multi-launch streaming runs: narrower second tier (round-5
-    # W-sweep: boundary re-sorts keep the layout coherent, W2=48 wins)
-    srt = resolve_champion(1_000_000, sorted_multi_launch=True)
-    assert (srt["window_cells"], srt["window_cells2"]) == (16, 48)
-    # the resident regime ignores the flag (no streaming launch sort)
-    srt_small = resolve_champion(100_000, sorted_multi_launch=True)
-    assert (srt_small["window_cells"], srt_small["window_cells2"]) == (24, 0)
-    # tile height mirrors _auto_tile_rows, incl. the lifecycle derate
-    assert big["tile_rows"] == 192
-    assert resolve_champion(1_000_000, lifecycle=True)["tile_rows"] == 128
-    assert resolve_champion(10_000_000)["tile_rows"] == 256
+    d = tmp_path / "xla-cache"
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(d))
+    assert enable_persistent_compile_cache() == str(d)
+    assert d.is_dir()
+    assert jax.config.jax_compilation_cache_dir == str(d)
 
-    # the ModelConfig defaults are the auto sentinels
-    cfg = ModelConfig()
-    assert cfg.window_cells == -1 and cfg.window_cells2 == -1
-    r = apply_champion(cfg, 1_000_000)
-    assert (r.window_cells, r.window_cells2) == (16, 96)
-    r = apply_champion(cfg, 100_000)
-    assert (r.window_cells, r.window_cells2) == (24, 0)
-    # explicit settings win over the ladder; nothing-auto returns cfg as-is
-    e = cfg.replace(window_cells=32, window_cells2=0)
-    assert apply_champion(e, 1_000_000) is e
-    half = apply_champion(cfg.replace(window_cells=32), 1_000_000)
-    assert (half.window_cells, half.window_cells2) == (32, 96)
 
-    # the scan-path resolver maps the sentinels to its floor (W=16, no W2)
-    from msgwam_tpu.ops.rhs_pallas import resolve_window_cells
+@pytest.mark.parametrize("case", ["unset_default", "cpu_opt_out", "fixed_path"])
+def test_compile_cache_default(case, monkeypatch, _restore_cache_config):
+    """Unset, the cache directory is <repo>/.jax_cache (git-ignored), the
+    CPU backend keeps the cache off, and the path holds no pid or time."""
+    import jax
+    from msgwam_tpu.utils import xla
 
-    assert resolve_window_cells(cfg, 128) == (16, 0)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = os.path.join(repo, ".jax_cache")
+    if case == "unset_default":
+        assert xla.compile_cache_dir() == want
+        with open(os.path.join(repo, ".gitignore")) as f:
+            ignored = {line.strip().strip("/") for line in f}
+        assert ".jax_cache" in ignored, ".jax_cache must be git-ignored"
+    elif case == "cpu_opt_out":
+        before = jax.config.jax_compilation_cache_dir
+        assert jax.default_backend() == "cpu"
+        assert xla.enable_persistent_compile_cache() is None
+        assert jax.config.jax_compilation_cache_dir == before
+    else:
+        # the same path on every call and in every process: the path is
+        # part of the cache key
+        assert xla.DEFAULT_COMPILE_CACHE_DIR == want
+        assert str(os.getpid()) not in want
+        assert xla.compile_cache_dir() == xla.compile_cache_dir()

@@ -29,13 +29,11 @@ def main():
     ap.add_argument("--nray", type=int, default=100_000)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default="/tmp/msgwam_trace")
-    ap.add_argument("--rhs", choices=["xla", "pallas"], default="xla")
     args = ap.parse_args()
 
     cfg = mt.REFERENCE_RUN_CONFIG.replace(
         saturate_online=True, dtype="float32",
         projection_backend="mxu", interp_backend="mxu",
-        rhs_backend=args.rhs,
     )
     gc = mt.GridConfig()
     uu = np.sin(gc.centers() / 1e4).astype(np.float32)
